@@ -24,9 +24,9 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-from asvgp_tpu.basis import BSplineBasis  # noqa: E402
-from asvgp_tpu.models import ExactGPR, GPR1D, Matern32  # noqa: E402
-from asvgp_tpu.train import fit_lbfgs  # noqa: E402
+from asvgp.basis import BSplineBasis  # noqa: E402
+from asvgp.models import ExactGPR, GPR1D, Matern32  # noqa: E402
+from asvgp.train import fit_lbfgs  # noqa: E402
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "..", "data", "snelson")
 

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu import banded
-from asvgp_tpu.basis import BSplineBasis
-from asvgp_tpu.features.spline_features import make_kuu
-from asvgp_tpu.models import Matern12, Matern32, Matern52
-from asvgp_tpu.models.additive import GPRAdditive
+from asvgp import banded
+from asvgp.basis import BSplineBasis
+from asvgp.features.spline_features import make_kuu
+from asvgp.models import Matern12, Matern32, Matern52
+from asvgp.models.additive import GPRAdditive
 
 
 def make_data(n=120, D=3, seed=0):
@@ -108,7 +108,7 @@ def test_additive_predict_matches_dense():
 
 
 def test_additive_trains():
-    from asvgp_tpu.train import fit_lbfgs
+    from asvgp.train import fit_lbfgs
 
     X, y = make_data(n=200, D=2, seed=4)
     bases = [BSplineBasis(0.0, 1.0, 12, 3)] * 2
@@ -125,14 +125,46 @@ def test_additive_validation():
         GPRAdditive((X, y), [Matern32()], [BSplineBasis(0.0, 1.0, 10, 3)])
 
 
+def _to_blocks(P, rhs, B=128):
+    """Pad SPD (M, M) to a multiple of B (identity on the padded diagonal,
+    zero rhs rows) and take full-bandwidth block-lower storage."""
+    from asvgp.banded import block as _block
+
+    M = P.shape[0]
+    n_pad = (-M) % B
+    if n_pad:
+        P = jnp.pad(P, ((0, n_pad), (0, n_pad)))
+        r = jnp.arange(M, M + n_pad)
+        P = P.at[r, r].set(1.0)
+        rhs = jnp.pad(rhs, (0, n_pad))
+    nb = P.shape[0] // B
+    return _block.dense_to_block_band(P, nb - 1, B), rhs, M
+
+
+def _logdet_halfsolve_block(P, rhs):
+    from asvgp.banded import block as _block
+
+    blocks, rhs_p, M = _to_blocks(P, rhs)
+    L = _block.cholesky_block_banded(blocks)
+    c = _block.solve_lower_block_banded(L, rhs_p)
+    return _block.log_det_from_block_cholesky(L), c[:M]
+
+
+def _solve_and_inverse_block(P, rhs):
+    from asvgp.banded import block as _block
+
+    blocks, rhs_p, M = _to_blocks(P, rhs)
+    L = _block.cholesky_block_banded(blocks)
+    w = _block.cholesky_solve_block_banded(L, rhs_p)
+    S = _block.takahashi_inverse_block_banded(L)
+    return w[:M], _block.block_band_to_dense(S)[:M, :M]
+
+
 def test_dense_block_route_matches_f64():
-    """The accelerator block route of the dense coupling factorization
-    (full-bandwidth block-banded ops + identity padding) must equal the
-    plain f64 path: value, half-solve, full inverse, and gradients."""
-    from asvgp_tpu.models.additive import (
-        _logdet_halfsolve_block,
-        _solve_and_inverse_block,
-    )
+    """A dense SPD matrix is block-banded at full block bandwidth: the
+    block-banded ops (with identity padding) must equal the plain dense f64
+    path the additive coupling uses — value, half-solve, full inverse, and
+    gradients."""
 
     rng = np.random.RandomState(3)
     M = 300  # pads 300 -> 384 = 3 blocks of 128

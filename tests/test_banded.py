@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 from jax.test_util import check_grads
 
-from asvgp_tpu import banded
+from asvgp import banded
 
 
 def random_banded_spd(key, m, k, dtype=jnp.float64):
@@ -100,7 +100,7 @@ def test_band_frobenius(m, k):
 def test_product_band_band(m, la, ua, lb, ub, lc, uc):
     key = jax.random.PRNGKey(7)
     ka, kb = jax.random.split(key)
-    from asvgp_tpu.banded.layout import mask_band
+    from asvgp.banded.layout import mask_band
 
     a_band = mask_band(jax.random.normal(ka, (la + ua + 1, m), jnp.float64), la, ua)
     b_band = mask_band(jax.random.normal(kb, (lb + ub + 1, m), jnp.float64), lb, ub)
@@ -184,9 +184,9 @@ def test_impl_scope_threads_backend():
     """GPR1D(backend=...) must control dispatch regardless of ambient
     device context (VERDICT r1 weak #7)."""
     import numpy as np
-    from asvgp_tpu.banded import ops as bops
-    from asvgp_tpu.basis import B3Spline
-    from asvgp_tpu.models import GPR1D, Matern32
+    from asvgp.banded import ops as bops
+    from asvgp.basis import B3Spline
+    from asvgp.models import GPR1D, Matern32
 
     rng = np.random.RandomState(0)
     x = rng.uniform(0.05, 0.95, 500)

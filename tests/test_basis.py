@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu import banded
-from asvgp_tpu.basis import BSplineBasis, bsplines
+from asvgp import banded
+from asvgp.basis import BSplineBasis, bsplines
 
 
 # ---------------------------------------------------------------------------
@@ -65,7 +65,7 @@ def test_cardinal_pieces_properties(order):
     assert len(pieces) == order + 1
     # partition of unity of integer translates: sum_p piece_p(t) == 1
     total = (Fraction(0),)
-    from asvgp_tpu.basis.bsplines import _poly_add
+    from asvgp.basis.bsplines import _poly_add
 
     for p in pieces:
         total = _poly_add(total, p)

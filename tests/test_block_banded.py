@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu.banded import block
+from asvgp.banded import block
 
 
 def random_block_banded_spd(key, nb, B, W):

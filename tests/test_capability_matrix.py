@@ -13,9 +13,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asvgp_tpu.basis import BSplineBasis
-from asvgp_tpu.features.spline_features import MIN_ORDER
-from asvgp_tpu.models import ExactGPR, GPR1D, Matern12, Matern32, Matern52
+from asvgp.basis import BSplineBasis
+from asvgp.features.spline_features import MIN_ORDER
+from asvgp.models import ExactGPR, GPR1D, Matern12, Matern32, Matern52
 
 KERNELS = {"matern12": Matern12, "matern32": Matern32, "matern52": Matern52}
 

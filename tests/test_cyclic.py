@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu import banded
-from asvgp_tpu.banded import cyclic
-from asvgp_tpu.banded import ops as bops
+from asvgp import banded
+from asvgp.banded import cyclic
+from asvgp.banded import ops as bops
 
 
 def random_band(key, m, k, diag=2.0):

@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu.basis import B3Spline
-from asvgp_tpu.models import GPR1D, Matern52
-from asvgp_tpu.train import fit_lbfgs, nlpd
+from asvgp.basis import B3Spline
+from asvgp.models import GPR1D, Matern52
+from asvgp.train import fit_lbfgs, nlpd
 
 
 @pytest.mark.slow

@@ -12,10 +12,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asvgp_tpu.basis import B3Spline, B4Spline
-from asvgp_tpu.models import GPR1D, Matern32
-from asvgp_tpu.models.kron import GPRKron
-from asvgp_tpu.utils import exec_cache
+from asvgp.basis import B3Spline, B4Spline
+from asvgp.models import GPR1D, Matern32
+from asvgp.models.kron import GPRKron
+from asvgp.utils import exec_cache
 
 
 @pytest.fixture

@@ -63,3 +63,49 @@ def test_spatial_2d_script():
         "--iters", "25",
     ])
     assert "MSE =" in stdout and "NLL =" in stdout
+
+
+def _synthetic_1m():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_1m",
+        os.path.join(ROOT, "experiments", "large_regression", "synthetic_1m.py"),
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_load_data_npz_needs_named_arrays(tmp_path):
+    """An .npz without x/y names must be refused: archive order says
+    nothing about which array is the input."""
+    import numpy as np
+
+    mod = _synthetic_1m()
+    rng = np.random.RandomState(0)
+    t, target = rng.rand(50), rng.randn(50)
+    bad = str(tmp_path / "swapped.npz")
+    np.savez(bad, target=target, time=t)
+    with pytest.raises(ValueError, match="'x' and 'y'"):
+        mod.load_data(bad)
+    good = str(tmp_path / "named.npz")
+    np.savez(good, y=target, x=t)
+    x, y = mod.load_data(good)
+    assert 0.0 < x.min() and x.max() < 1.0
+    np.testing.assert_allclose(np.argsort(x), np.argsort(t))
+    np.testing.assert_allclose(y, (target - target.mean()) / target.std())
+
+
+@pytest.mark.parametrize("constant", ["x", "y"])
+def test_load_data_rejects_constant_columns(tmp_path, constant):
+    import numpy as np
+
+    mod = _synthetic_1m()
+    rng = np.random.RandomState(1)
+    arr = rng.rand(40, 2)
+    arr[:, 0 if constant == "x" else 1] = 3.0
+    path = str(tmp_path / "data.npy")
+    np.save(path, arr)
+    with pytest.raises(ValueError, match=f"{constant} is constant"):
+        mod.load_data(path)

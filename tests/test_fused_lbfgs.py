@@ -1,6 +1,6 @@
 """Fused (single-eval-site) L-BFGS engine vs the optax reference engine.
 
-The fused driver (asvgp_tpu/train/fused_lbfgs.py) reimplements
+The fused driver (asvgp/train/fused_lbfgs.py) reimplements
 optax.lbfgs + scale_by_zoom_linesearch as one while loop with the
 objective inlined at a single site.  The algorithm is intended to be
 step-for-step identical, so these tests require trajectory-level
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu.train.lbfgs import fit_lbfgs
+from asvgp.train.lbfgs import fit_lbfgs
 
 
 def _both(loss, p0, **kw):
@@ -84,8 +84,8 @@ def test_iteration_cap_and_grad_norm():
 def test_snelson_matches_optax():
     X = np.loadtxt("data/snelson/train_inputs").reshape(-1, 1)
     y = np.loadtxt("data/snelson/train_outputs").reshape(-1, 1)
-    from asvgp_tpu.basis import B3Spline
-    from asvgp_tpu.models import GPR1D, Matern32
+    from asvgp.basis import B3Spline
+    from asvgp.models import GPR1D, Matern32
 
     model = GPR1D((X, y), Matern32(), B3Spline(-3.5, 10.5, 100))
     out = _both(jax.jit(model.training_loss), model.init_params())

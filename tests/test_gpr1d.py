@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu import banded
-from asvgp_tpu.basis import B3Spline, BSplineBasis
-from asvgp_tpu.features.spline_features import make_kuu
-from asvgp_tpu.models import ExactGPR, GPR1D, Matern12, Matern32, Matern52
-from asvgp_tpu.models.parameters import positive_inverse
-from asvgp_tpu.stats.sufficient import compute_stats, compute_stats_sharded
-from asvgp_tpu.train import fit_lbfgs
+from asvgp import banded
+from asvgp.basis import B3Spline, BSplineBasis
+from asvgp.features.spline_features import make_kuu
+from asvgp.models import ExactGPR, GPR1D, Matern12, Matern32, Matern52
+from asvgp.models.parameters import positive_inverse
+from asvgp.stats.sufficient import compute_stats, compute_stats_sharded
+from asvgp.train import fit_lbfgs
 
 DATA_DIR = os.path.join(os.path.dirname(__file__), "..", "data", "snelson")
 

@@ -12,12 +12,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu import banded
-from asvgp_tpu.basis import BSplineBasis
-from asvgp_tpu.models import Matern12, Matern32, Matern52
-from asvgp_tpu.models.kron import GPRKron
-from asvgp_tpu.features.spline_features import make_kuu
-from asvgp_tpu.stats.kron import compute_kron_stats, compute_kron_stats_sharded
+from asvgp import banded
+from asvgp.basis import BSplineBasis
+from asvgp.models import Matern12, Matern32, Matern52
+from asvgp.models.kron import GPRKron
+from asvgp.features.spline_features import make_kuu
+from asvgp.stats.kron import compute_kron_stats, compute_kron_stats_sharded
 
 
 def make_data(n=120, seed=0):
@@ -150,7 +150,7 @@ def test_kron_predict_matches_dense_oracle():
 @pytest.mark.slow
 def test_kron_elbo_is_trainable_and_bounded():
     """ELBO improves under L-BFGS and stays a finite scalar."""
-    from asvgp_tpu.train import fit_lbfgs
+    from asvgp.train import fit_lbfgs
 
     X, y = make_data(n=300, seed=5)
     bases = [BSplineBasis(0.0, 1.0, 10, 3), BSplineBasis(-1.0, 1.2, 10, 3)]

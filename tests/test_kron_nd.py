@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu import banded
-from asvgp_tpu.basis import BSplineBasis
-from asvgp_tpu.models import Matern12, Matern32
-from asvgp_tpu.models.kron import GPRKron
-from asvgp_tpu.features.spline_features import make_kuu
-from asvgp_tpu.stats.kron_nd import (
+from asvgp import banded
+from asvgp.basis import BSplineBasis
+from asvgp.models import Matern12, Matern32
+from asvgp.models.kron import GPRKron
+from asvgp.features.spline_features import make_kuu
+from asvgp.stats.kron_nd import (
     compute_kron_stats_nd,
     compute_kron_stats_nd_sharded,
 )

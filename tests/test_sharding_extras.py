@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asvgp_tpu.basis import B3Spline, BSplineBasis
-from asvgp_tpu.stats.additive import (
+from asvgp.basis import B3Spline, BSplineBasis
+from asvgp.stats.additive import (
     compute_additive_stats,
     compute_additive_stats_sharded,
 )
-from asvgp_tpu.stats.sufficient import (
+from asvgp.stats.sufficient import (
     compute_stats,
     compute_stats_sharded_masked,
     pad_for_sharding,
@@ -62,10 +62,10 @@ def test_kron_dp_step_full_batch_matches_elbo():
     mesh — the DP step is the same math, psum-assembled."""
     import optax
 
-    from asvgp_tpu.basis import B4Spline
-    from asvgp_tpu.models import Matern32
-    from asvgp_tpu.models.kron import GPRKron, kron_collapsed_elbo
-    from asvgp_tpu.parallel import make_dp_train_step_kron, shard_data
+    from asvgp.basis import B4Spline
+    from asvgp.models import Matern32
+    from asvgp.models.kron import GPRKron, kron_collapsed_elbo
+    from asvgp.parallel import make_dp_train_step_kron, shard_data
 
     rng = np.random.RandomState(3)
     n = 256
@@ -106,10 +106,10 @@ def test_additive_dp_step_full_batch_matches_elbo():
     stretch #8: additive-family DP parity)."""
     import optax
 
-    from asvgp_tpu.basis import B3Spline
-    from asvgp_tpu.models import Matern32
-    from asvgp_tpu.models.additive import GPRAdditive, additive_collapsed_elbo
-    from asvgp_tpu.parallel import make_dp_train_step_additive, shard_data
+    from asvgp.basis import B3Spline
+    from asvgp.models import Matern32
+    from asvgp.models.additive import GPRAdditive, additive_collapsed_elbo
+    from asvgp.parallel import make_dp_train_step_additive, shard_data
 
     rng = np.random.RandomState(5)
     n = 256

@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from asvgp_tpu import banded
-from asvgp_tpu.basis import B3Spline
-from asvgp_tpu.features.spline_features import make_kuu
-from asvgp_tpu.models import GPR1D, Matern32
-from asvgp_tpu.models.parameters import positive_inverse
-from asvgp_tpu.models.svgp import SVGP1D, fit_svgp
+from asvgp import banded
+from asvgp.basis import B3Spline
+from asvgp.features.spline_features import make_kuu
+from asvgp.models import GPR1D, Matern32
+from asvgp.models.parameters import positive_inverse
+from asvgp.models.svgp import SVGP1D, fit_svgp
 
 
 def make_data(n=400, seed=0):

@@ -8,17 +8,17 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from asvgp_tpu.basis import B3Spline
-from asvgp_tpu.models import GPR1D, Matern32
-from asvgp_tpu.models.gpr1d import default_params
-from asvgp_tpu.parallel import make_dp_train_step, shard_data
-from asvgp_tpu.train import (
+from asvgp.basis import B3Spline
+from asvgp.models import GPR1D, Matern32
+from asvgp.models.gpr1d import default_params
+from asvgp.parallel import make_dp_train_step, shard_data
+from asvgp.train import (
     fit_adam_minibatch,
     fit_lbfgs,
     load_pytree,
     save_pytree,
 )
-from asvgp_tpu.train.logging import MetricsLogger, WallClock
+from asvgp.train.logging import MetricsLogger, WallClock
 
 
 def make_data(n=512, seed=0):
@@ -99,8 +99,8 @@ def test_metrics_logger_and_wallclock():
 
 
 def test_interop_roundtrips():
-    from asvgp_tpu.utils import kuf_to_scipy, lower_band_to_scipy, scipy_to_lower_band
-    from asvgp_tpu.features.spline_features import make_kuu
+    from asvgp.utils import kuf_to_scipy, lower_band_to_scipy, scipy_to_lower_band
+    from asvgp.features.spline_features import make_kuu
 
     basis = B3Spline(0.0, 1.0, 20)
     kuu = make_kuu(Matern32(), basis)
@@ -261,12 +261,12 @@ def test_exec_cache_key_ignores_unrelated_sources():
     bodies a structural jaxpr digest cannot see."""
     import os
 
-    from asvgp_tpu.utils import exec_cache
+    from asvgp.utils import exec_cache
 
     paths = exec_cache.digest_paths()
     rel = {os.path.relpath(p, os.path.dirname(os.path.dirname(
         exec_cache.__file__))) for p in paths}
-    assert any(p.startswith("banded/") and p.endswith("pallas_ds.py")
+    assert any(p.startswith("banded/") and p.endswith("sweep.py")
                for p in rel)
     assert any(p == "train/lbfgs.py" for p in rel)
     assert not any(p.startswith("models/") for p in rel)
@@ -283,7 +283,7 @@ def test_exec_cache_key_survives_model_comment_edit():
     model code) correctly changes."""
     import os
 
-    from asvgp_tpu.utils import exec_cache
+    from asvgp.utils import exec_cache
 
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(exec_cache.__file__)))
     vff = os.path.join(pkg, "models", "vff.py")

@@ -2,8 +2,8 @@
 
 The twisted core (banded/twisted.py) must reproduce, to f64 roundoff, the
 same quantities as the single-ended scan ops it re-derives: log|A|, band of
-A⁻¹ (Takahashi), A⁻¹b, and bᵀA⁻¹b.  These are the semantics the DS Pallas
-twisted kernels are then built against.
+A⁻¹ (Takahashi), A⁻¹b, and bᵀA⁻¹b.  These are the semantics a two-ended
+sweep kernel would be built against.
 """
 
 import numpy as np
@@ -11,9 +11,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from asvgp_tpu.banded import ops
-from asvgp_tpu.banded import twisted
-from asvgp_tpu.banded.layout import dense_to_band
+from asvgp.banded import ops
+from asvgp.banded import twisted
+from asvgp.banded.layout import dense_to_band
 
 
 def _rand_spd_band(m, k, seed=0):
@@ -105,8 +105,8 @@ def test_twisted_collapsed_core_matches_ops():
 def test_twisted_grads_match_autodiff():
     """Value-and-grad through the twisted scalars == through the plain ops
     (both by plain autodiff in f64) — confirms the twisted composition is
-    differentiable and consistent, the contract the custom-VJP Pallas
-    version will assume."""
+    differentiable and consistent, the contract a custom-VJP kernel
+    version would assume."""
     m, k = 48, 2
     kuu = _rand_spd_band(m, k, seed=11)
     p = _rand_spd_band(m, k, seed=12)

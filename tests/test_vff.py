@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from asvgp_tpu.features.fourier import FourierBasis1D, make_kuu_vff
-from asvgp_tpu.models.kernels import Matern
-from asvgp_tpu.models.vff import GPRVFF
+from asvgp.features.fourier import FourierBasis1D, make_kuu_vff
+from asvgp.models.kernels import Matern
+from asvgp.models.vff import GPRVFF
 
 A, B_ = -0.3, 1.7
 _SQRT3 = math.sqrt(3.0)
@@ -92,8 +92,8 @@ def test_kuu_vff_matches_quadrature(nu2, name):
 
 
 def test_vff_elbo_lower_bounds_exact_gp_snelson():
-    from asvgp_tpu.models import ExactGPR, Matern32
-    from asvgp_tpu.train import fit_lbfgs
+    from asvgp.models import ExactGPR, Matern32
+    from asvgp.train import fit_lbfgs
 
     root = os.path.join(os.path.dirname(__file__), "..")
     X = np.loadtxt(os.path.join(root, "data/snelson/train_inputs")).reshape(-1)

@@ -20,10 +20,10 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402
 
-from asvgp_tpu.banded import cyclic, ops as bops  # noqa: E402
-from asvgp_tpu.basis import B3Spline  # noqa: E402
-from asvgp_tpu.features.spline_features import make_kuu  # noqa: E402
-from asvgp_tpu.models import Matern32  # noqa: E402
+from asvgp.banded import cyclic, ops as bops  # noqa: E402
+from asvgp.basis import B3Spline  # noqa: E402
+from asvgp.features.spline_features import make_kuu  # noqa: E402
+from asvgp.models import Matern32  # noqa: E402
 
 mp.mp.dps = 50
 M = int(sys.argv[1]) if len(sys.argv) > 1 else 512
